@@ -1,5 +1,5 @@
 """Basic 2D p-Laplace solve — the reference quickstart
-(/root/reference/README.md:28-48) in TPU-native form.
+(reference README.md:28-48) in this framework.
 
 Run:  python examples/basic_solve.py
 """

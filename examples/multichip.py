@@ -5,7 +5,7 @@ single-controller GSPMD.
 Run (8 virtual devices on CPU):
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       python examples/multichip.py
-On a TPU slice it uses all local chips automatically.
+On a multi-GPU host it uses every visible card.
 """
 
 import numpy as np
@@ -19,7 +19,7 @@ import multigridbarrier_tpu as mgb
 
 print("devices:", jax.devices())
 
-backend = mgb.backend_tpu()  # mesh over all local devices
+backend = mgb.backend_mesh()  # mesh over all local devices
 print("mesh size:", backend.n_devices)
 
 g = mgb.fem2d(L=3, backend=backend)

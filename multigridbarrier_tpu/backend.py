@@ -4,7 +4,7 @@ The reference parameterizes every distributed object by an
 ``HPCBackend{T,Ti,Device,Comm,Solver}`` (reference
 src/MultiGridBarrierMPI.jl:84-114, test/test_utils.jl:131) with CPU/CUDA/Metal
 devices, serial/MPI communicators and MUMPS/cuDSS direct solvers.  The
-TPU-native analogue collapses Device+Comm into a `jax.sharding.Mesh` (XLA
+JAX analogue collapses Device+Comm into a `jax.sharding.Mesh` (XLA
 GSPMD emits the collectives) and Solver into a linear-solver policy
 (dense Cholesky below a size threshold, multigrid-preconditioned CG above).
 """
@@ -117,18 +117,22 @@ def make_mesh(n_devices: Optional[int] = None, devices=None) -> jax.sharding.Mes
 def backend_cpu(dtype=jnp.float64, itype=jnp.int32, **kw) -> Backend:
     """Single-device backend (reference: backend_cpu_serial, src:95).
 
+    Arrays live on JAX's default device: the GPU when one is visible,
+    otherwise the CPU.
+
     Extra kwargs override Backend fields (e.g. dense_threshold=1<<30 for
     an exact-direct-solve ground-truth run, tools/check_exact.py)."""
     return Backend(dtype=dtype, itype=itype, mesh=None, **kw)
 
 
-def backend_tpu(
+def backend_mesh(
     dtype=jnp.float64,
     itype=jnp.int32,
     n_devices: Optional[int] = None,
 ) -> Backend:
     """Meshed backend over all (or the first `n_devices`) local devices
-    (reference: backend_cpu_mpi / backend_cuda_mpi, src:92-110)."""
+    (reference: backend_cpu_mpi / backend_cuda_mpi, src:92-110).  A
+    single device gives the unmeshed backend."""
     mesh = make_mesh(n_devices)
     if mesh.size == 1:
         return Backend(dtype=dtype, itype=itype, mesh=None)
@@ -136,5 +140,8 @@ def backend_tpu(
 
 
 def backend_auto(dtype=jnp.float64) -> Backend:
-    """Pick a mesh over all local devices when more than one is present."""
-    return backend_tpu(dtype=dtype) if len(jax.devices()) > 1 else backend_cpu(dtype=dtype)
+    """A 'dof' mesh over EVERY visible device when more than one is
+    present, else the single-device backend.  It is the default of the
+    fem*_solve entry points, so on a four-GPU host they shard across all
+    four cards unless a backend is passed."""
+    return backend_mesh(dtype=dtype) if len(jax.devices()) > 1 else backend_cpu(dtype=dtype)

@@ -1,13 +1,8 @@
-"""Measured-REJECTED machinery, quarantined.
-
-Everything in this package was built for a hypothesis that controlled
-measurement then falsified; it is kept (tested) so the negative result
-stays reproducible, but nothing here is a production code path.  See
-options.py KNOBS entries of kind "experimental" for the rejection records.
+"""Number formats and kernels kept for A/B runs, off the default path.
 
 Current contents:
-  ozmm.py — Ozaki-scheme f64 matmul emulation via bf16 MXU slices.
-    Built for the ND factor's f64 matmuls; session-8/9 measurement showed
-    the factor is f64-EMULATION-bound in XLA's scalar ops, not matmul
-    flops, so a faster f64 matmul buys nothing (CLAUDE.md round-2).
+  dfmm.py — double-float (pair-f32) arithmetic and the batched base-block
+    Cholesky / triangular-inverse kernels of the ND factor's df engine
+    (MGB_ND_CHEAP=df, MGB_ND_BASE=df).  Built for hardware that emulates
+    f64 in software; native-f64 platforms keep XLA's f64 kernels.
 """

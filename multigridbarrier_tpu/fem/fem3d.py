@@ -3,11 +3,11 @@ fem3d(T; L, k, K) with Q_k elements, default k=3,
 /root/reference/src/MultiGridBarrierMPI.jl:680-687; 3D problem defaults
 D = [u:id, u:dx, u:dy, u:dz, s:id], src:736-738).
 
-TPU-native design: spectral-element collocation.  The broken points of
+Design: spectral-element collocation.  The broken points of
 each hexahedron are the tensor-product Gauss-Lobatto-Legendre (GLL) nodes
 of order k — simultaneously a positive quadrature rule (exact through
 degree 2k-1) and a unisolvent nodal set for Q_k, so differential
-operators are dense (k+1)^3 x (k+1)^3 blocks applied as batched MXU
+operators are dense (k+1)^3 x (k+1)^3 blocks applied as batched
 matmuls, and the conforming-subspace inclusion is element-local
 (runtime/elements.py).
 

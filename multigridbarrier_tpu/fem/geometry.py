@@ -14,7 +14,7 @@ Mirrors the reference Geometry{T,X,W,M,D} contract
 - ``refine``/``coarsen``: level-transfer operators between broken spaces of
   consecutive levels
 
-plus two internal extras the TPU design wants:
+plus two internal extras the batched design wants:
 
 - ``embed``: per-subspace inter-level embeddings E_l (m_{l+1} x m_l) with
   R_{l+1} @ E_l == R_l (spaces are nested); used for multigrid transfers in
@@ -60,7 +60,7 @@ class Geometry:
     coarsen: Tuple[Ell, ...]
     embed: Dict[str, Tuple[Ell, ...]]
     backend: Backend
-    # Element-local views of `subspaces` (same matrices, MXU-friendly layout;
+    # Element-local views of `subspaces` (same matrices, batched layout;
     # see runtime/elements.py).  The solver's canonical representation.
     bases: Dict[str, Tuple[LevelBasis, ...]] = dataclasses.field(
         default_factory=dict

@@ -1,15 +1,15 @@
-"""TPU-native array runtime — the HPCSparseArrays.jl replacement.
+"""Array runtime — the HPCSparseArrays.jl replacement.
 
 The reference runtime (reconstructed in SURVEY.md §2.2) provides
 row-distributed HPCVector/HPCMatrix/HPCSparseMatrix with MPI-collective
 SpMV/SpGEMM/blockdiag/hcat/spdiagm plus the `map_rows` SPMD map primitive.
 Here the same capability is carried by three structures that map directly
-onto TPU hardware:
+onto batched accelerator execution:
 
 * `Ell` — padded fixed-width sparse matrix (gather SpMV / segment-sum
   adjoint SpMV); used for subspace inclusions and level-transfer operators.
-* `BlockDiagOp` — per-element dense blocks applied as batched matmuls on
-  the MXU; used for every differential operator.
+* `BlockDiagOp` — per-element dense blocks applied as batched matmuls;
+  used for every differential operator.
 * `map_rows` — `jax.vmap` over rows; the reference's MPI.Allgather
   type-detection sync (tools/profile_map_rows_steps.jl:86-117) vanishes
   because shapes are static under jit.

@@ -4,8 +4,8 @@ Every differential operator of the broken quadrature-point space
 (`operators[:id]/[:dx]/[:dy]/[:dz]` of the reference Geometry,
 docs/src/api.md:84) is block-diagonal over elements: within one element the
 polynomial is determined by its quadrature values, so differentiation is a
-small dense nq x nq matrix per element.  On TPU that is a batched matmul —
-the MXU path — instead of the reference's distributed CSR SpMV
+small dense nq x nq matrix per element, applied as a batched matmul
+instead of the reference's distributed CSR SpMV
 (test/test_apply_d.jl:43-49).
 """
 

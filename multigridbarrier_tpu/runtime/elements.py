@@ -1,4 +1,4 @@
-"""Element-local subspace bases — the TPU-native FEM assembly layout.
+"""Element-local subspace bases — the batched FEM assembly layout.
 
 The reference stores each multigrid inclusion matrix R_l (broken space <-
 level-l conforming subspace) as a distributed CSR and assembles the Newton
@@ -7,14 +7,14 @@ matrix with an SpGEMM chain R' (D' diag(w.*y) D) R every iteration
 re-hashing and re-planning communication each step
 (tools/profile_hash.jl:42-66).
 
-On TPU we exploit what the CSR hides: every broken point of finest element
+Here we exploit what the CSR hides: every broken point of finest element
 `e` interacts only with the subspace nodes of the level-l ancestor of `e`,
 so R_l is *element-local* — a dense (nq, nl) block per element plus an
 (nl,) global-node index list.  All solver operations become batched dense
-contractions on the MXU plus one gather and one segment-sum scatter:
+contractions plus one gather and one segment-sum scatter:
 
-    R v     = einsum('eqa,efa->eqf', rloc, v[idx])            (gather + MXU)
-    R' y    = segment_sum(einsum('eqa,eqf->eaf', rloc, y))    (MXU + scatter)
+    R v     = einsum('eqa,efa->eqf', rloc, v[idx])            (gather + matmul)
+    R' y    = segment_sum(einsum('eqa,eqf->eaf', rloc, y))    (matmul + scatter)
     R' M R  = batched (nl x nl) element matrices, never built globally
 
 Boundary (Dirichlet-eliminated) nodes are padded to slot `m`, whose basis
@@ -54,8 +54,8 @@ class LevelBasis:
     scatter_idx: (m+1, width) int32 — the scatter->gather duality table:
           row a lists the flat positions e*nl + slot with idx[e, slot] == a,
           padded with nelem*nl (a zero sentinel row).  Adjoint applications
-          become gathers + small sums — TPU scatters with duplicate indices
-          serialize and dominate the runtime otherwise.
+          become gathers + small sums, for hardware where scatters with
+          duplicate indices serialize.
     pair_idx: (nelem, nl, nl) int32 — inverse-unique ids of the global node
           pairs (idx[e,a], idx[e,b]); see node_pair_table.  Lets the
           Schwarz smoother assemble principal submatrices of the global
@@ -108,10 +108,9 @@ class LevelBasis:
         """Sum per-(element, slot) contributions into nodes: (nelem*nl, f)
         -> (m+1, f) with a zeroed pad row.
 
-        Measured on TPU v5e: segment_sum beats the gather-table dual by
-        ~10x here (row gathers with tiny innermost dims waste lanes), so
-        the scatter form is the default; `scatter_idx` remains available
-        for layouts where the dual wins."""
+        segment_sum is the default (row gathers with tiny innermost dims
+        waste vector lanes); `scatter_idx` remains available for layouts
+        where the gather dual wins."""
         out = jax.ops.segment_sum(
             flat, self.idx.reshape(-1), num_segments=self.m + 1
         )

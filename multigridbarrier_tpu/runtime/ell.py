@@ -4,7 +4,7 @@ The reference's HPCSparseMatrix is a row-distributed CSR with a
 structural-hash-keyed communication-plan cache that must be rebuilt every
 Newton step because a fresh diagonal matrix is created per iteration
 (reference tools/profile_hash.jl:42-66 — an explicitly measured overhead).
-The TPU-native design removes that failure mode: sparsity is padded once
+This design removes that failure mode: sparsity is padded once
 per geometry to a fixed width K, so every SpMV is a static-shape
 gather+contract and nothing is re-planned or re-compiled inside the
 Newton loop (SURVEY.md §7 hard part (c)).

@@ -40,7 +40,7 @@ def _load():
                 and os.path.getmtime(src) > os.path.getmtime(_SO_PATH)
             ):
                 # compile to a pid-unique temp path and rename atomically:
-                # concurrent imports (bench.py's retried subprocesses) must
+                # concurrent imports (parallel test workers) must
                 # never dlopen a partially written .so or race two
                 # compilers onto the same output file
                 tmp = f"{_SO_PATH}.tmp{os.getpid()}"

@@ -16,7 +16,7 @@ The Newton system
 is solved here in one of two ways, chosen statically by subspace size:
 
 * dense: the per-element Hessians are scatter-added into a global dense
-  matrix and factored with Cholesky (coarse levels; MXU-friendly, exact).
+  matrix and factored with Cholesky (coarse levels; exact).
 * mgcg: matrix-free preconditioned CG where H v is a batched element
   matmul + gather/segment-sum, preconditioned by a geometric multigrid
   V-cycle over the *same* element-local hierarchy.  Because every level's
@@ -47,9 +47,9 @@ class LevelSystem(NamedTuple):
     m:   static subspace size
     scatter_idx: (m+1, width) node-major gather table (see
         runtime/elements.py scatter_table), or None to fall back to
-        segment_sum.  TPU scatters with duplicate indices serialize, so
-        the gather form is the difference between micro- and milliseconds
-        per H@v.
+        segment_sum.  Where scatters with duplicate indices serialize, the
+        gather form is the difference between micro- and milliseconds per
+        H@v.
     """
 
     He: jnp.ndarray
@@ -94,10 +94,9 @@ def hvp(sys_: LevelSystem, vp: jnp.ndarray) -> jnp.ndarray:
 def hvp_lane(He_lane: jnp.ndarray, sys_: LevelSystem, vp: jnp.ndarray):
     """H @ v with He stored lane-major (C, C, nelem): the contraction
     becomes C^2 lane-wise FMAs over nelem-long vectors instead of a batched
-    tiny matmul padded to MXU tiles.  Measured on TPU v5e at fem2d L=7
-    (tools/bench_hvp.py): f64 4.7ms vs 9.6ms batched — the f64 CG operator
-    Aop is the single most expensive op per CG iteration, so mgcg_solve
-    uses this form for float64 systems (f32 shows no difference; the
+    tiny matmul padded to matrix-unit tiles (tools/bench_hvp.py times both
+    forms).  The f64 CG operator Aop is the single most expensive op per
+    CG iteration, so mgcg_solve uses this form for float64 systems (the
     V-cycle keeps the batched layout)."""
     idx, m = sys_.idx, sys_.m
     nelem, nl = idx.shape
@@ -129,8 +128,8 @@ def dense_assemble(sys_: LevelSystem, nf: int) -> jnp.ndarray:
     N = nf * (m + 1)
     fid = jnp.arange(nf)[None, :, None] * (m + 1) + idx[:, None, :]
     fid = fid.reshape(nelem, nf * nl)
-    # flat 1-D segment-sum instead of a 2-D batched scatter: XLA:TPU
-    # compiles N x N advanced-index scatters pathologically slowly
+    # flat 1-D segment-sum instead of a 2-D batched scatter: N x N
+    # advanced-index scatters have compiled pathologically slowly
     # (hundreds of seconds even for tiny N), while 1-D segment sums are
     # the same primitive the hot path already uses
     flat_ids = (fid[:, :, None] * N + fid[:, None, :]).reshape(-1)
@@ -144,7 +143,7 @@ def dense_assemble(sys_: LevelSystem, nf: int) -> jnp.ndarray:
 def dense_solve(
     sys_: LevelSystem, nf: int, bp: jnp.ndarray, shifts=None
 ) -> jnp.ndarray:
-    """Direct solve via dense Cholesky (no f64 LU on XLA:TPU; H is SPD).
+    """Direct solve via dense Cholesky (H is SPD).
 
     Barrier Hessians reach cond ~ 1e17 near path convergence.  An UNSHIFTED
     backward-stable factorization still yields excellent Newton directions
@@ -275,7 +274,7 @@ class SchwarzState(NamedTuple):
     barrier Hessians develop along the central path (near-boundary
     quadrature weights vary by orders of magnitude WITHIN an element);
     solving full subdomain blocks captures it, and the batched
-    triangular solves are exactly the shape the MXU wants."""
+    triangular solves are batched dense work."""
 
     chol: jnp.ndarray  # (nelem, C, C) lower Cholesky factors
     we: jnp.ndarray  # (nelem, C) partition-of-unity weights (pad slots 0)
@@ -590,7 +589,7 @@ def mgcg_solve(
         return hv + sh * diag_fine * v
 
     # Mixed precision: the preconditioner only steers the Krylov space, so
-    # its smoothing sweeps run in float32 (native TPU rate; f64 is emulated)
+    # its smoothing sweeps run in float32 (half the bytes of f64)
     # while CG residuals/updates stay at solve precision — the converged
     # accuracy is set by the outer iteration, the f32 inner pass just makes
     # it cheap.

@@ -49,7 +49,7 @@ def state():
     F1 = jax.grad(Qset.barrier, argnums=1)
     F2 = jax.hessian(Qset.barrier, argnums=1)
     Y2w = jax.vmap(F2)(ctx.x, y) * ctx.w[:, None, None]
-    He = ctx._assemble_He(Pl, Y2w.reshape(nelem, nq, k, k))
+    He = A._assemble_He(Pl, Y2w.reshape(nelem, nq, k, k))
     F1v = jax.vmap(F1)(ctx.x, y)
     gy = (ctx.w[:, None] * (1.0 * c + F1v)).reshape(nelem, nq, k)
     gf = jnp.einsum("eqj,eqjc->ec", gy, Pl)

@@ -1,8 +1,8 @@
 """Mixed-precision (f32 early path) contract tests.
 
 For f64 solves whose fine level uses MG-CG, amgb runs the t <= 1e5 leg of
-the central path in float32 and hands off to the f64 context (TPU lever:
-f64 is software-emulated on the v5e while f32 runs at native rate).  The
+the central path in float32 and hands off to the f64 context (a lever
+where f64 runs far below the f32 rate).  The
 contract: the f64 endgame alone sets the final accuracy, so the mixed
 solution must agree with a pure-f64 solve at the barrier method's own
 duality-gap scale, at comparable iteration cost.

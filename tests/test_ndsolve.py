@@ -74,16 +74,16 @@ def _grid_problem(G, nf, pad, seed=0):
      (2, True, 4, True, False, 6, "fanin"),
      (2, True, 16, True, False, 6, "fanin"),
      (2, True, 4, False, True, 6, "fanin"),
-     # relay extend-add (the TPU scatter-free path, MGB_ND_EA=relay),
+     # relay extend-add (the scatter-free path, MGB_ND_EA=relay),
      # both column-selection variants
      (2, True, 4, True, False, 6, "relay"),
      (1, False, 4, False, False, 6, "relay"),
      (2, True, 4, True, False, 6, "relay_gather"),
-     # row-level extend-add scatter (the L=8 scoped-vmem guard,
+     # row-level extend-add scatter (the L=8 window guard,
      # MGB_ND_EA_ROWMB=0 forces it at every depth)
      (2, True, 4, True, False, 6, "relay_rows"),
      (2, True, 4, True, False, 6, "relay_gather_rows"),
-     # large-leaf configs (the TPU fewer-depths lever, MGB_ND_LEAF=64):
+     # large-leaf configs (the fewer-depths lever, MGB_ND_LEAF=64):
      # a 12x12 grid so leaf 64 still produces a real separator tree
      (2, True, 64, True, False, 12, "fanin"),
      (2, True, 64, False, False, 12, "fanin"),
@@ -453,8 +453,8 @@ def test_end_to_end_host_tmin_handoff():
     """MGB_HOST_TMIN endgame handoff: an ND-routed fine level hands the
     direction solve to the host SuperLU engine for t >= tmin and the
     trajectory must still land on the exact objective (the handoff was
-    built for the v5e software-f64 endgame wall at L=8, round-5;
-    artifacts/BENCH_L8_tpu_r5_inv0.json).  Forced-ND L=4 with the
+    built for an accelerator endgame whose factor was not accurate
+    enough at L=8).  Forced-ND L=4 with the
     handoff from t=1e4 exercises both engines inside one path."""
     import os
 

@@ -8,7 +8,7 @@ import os
 import pytest
 
 import multigridbarrier_tpu as mgb
-from multigridbarrier_tpu.options import KNOBS, SolverOptions
+from multigridbarrier_tpu.options import KNOBS, SolverOptions, platform_policy
 
 
 def test_snapshot_excludes_observability():
@@ -49,9 +49,7 @@ def test_every_solver_env_read_is_registered():
         seen |= set(re.findall(r"MGB_[A-Z0-9_]+", p.read_text()))
     # harness plumbing read outside solver kernels
     allowed_unregistered = {
-        "MGB_", "MGB_BENCH_L", "MGB_BENCH_DTYPE", "MGB_BENCH_TIMEOUT",
-        "MGB_BENCH_SUBPROCESS", "MGB_BENCH_PLATFORM_NOTE",
-        "MGB_BENCH_NO_PROBE", "MGB_TESTS_REEXEC", "MGB_DRYRUN_SUBPROCESS",
+        "MGB_", "MGB_BENCH_L", "MGB_BENCH_DTYPE", "MGB_DRYRUN_SUBPROCESS",
     }
     # prefix literals like "MGB_BENCH_" (startswith filters) aren't knobs
     seen = {s for s in seen if not s.endswith("_")}
@@ -107,3 +105,49 @@ def test_observability_knob_does_not_rebuild_ctx():
     finally:
         del os.environ["MGB_HOST_STATS"]
     assert ctx2 is ctx1
+
+
+def test_platform_policy_cpu_is_native_f64():
+    pol = platform_policy()
+    assert pol.platform == "cpu"
+    assert (pol.nd_f32pc, pol.nd_cheap, pol.nd_inv, pol.nd_chol,
+            pol.nd_pcg) == (False, "f32", False, "xla", 2)
+
+
+def test_platform_policy_gpu(monkeypatch):
+    """A GPU gets the native-f64 engines, and the ND factorizer and the
+    solver context read their defaults from that one policy."""
+    import jax
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    for k in ("MGB_ND_INV", "MGB_ND_CHOL", "MGB_ND_F32PC", "MGB_ND_CHEAP"):
+        monkeypatch.delenv(k, raising=False)
+    pol = platform_policy()
+    assert pol.platform == "gpu"
+    assert (pol.nd_f32pc, pol.nd_cheap, pol.nd_inv, pol.nd_chol,
+            pol.nd_pcg) == (False, "f32", False, "xla", 2)
+    from multigridbarrier_tpu.solver.ndsolve import NDFactorizer, NDSymbolic
+    from test_ndsolve import _grid_problem
+
+    idx, coords, _, _ = _grid_problem(6, 2, True)
+    fz = NDFactorizer(NDSymbolic(idx, coords.shape[0], 2, coords, leaf=8))
+    assert (fz.use_inv, fz.chol) == (pol.nd_inv, pol.nd_chol)
+    A = __import__("importlib").import_module(
+        "multigridbarrier_tpu.solver.amgb"
+    )
+    g = mgb.fem2d(L=2)
+    spec = A._normalize_D(A.default_D(2))
+    ctx = A._SolverCtx(g, spec, A.default_Q(2, 1.0).barrier, g.x[:, :2])
+    assert ctx.policy is pol
+    assert not ctx._f32pc_on() and ctx._nd_cheap_engine() == "f32"
+    assert ctx.newton_chunk == 4 and ctx.cg_maxiter == 200
+
+
+def test_platform_policy_unknown_platform_raises(monkeypatch):
+    import jax
+
+    with pytest.raises(RuntimeError, match="no solver policy"):
+        platform_policy("metal")
+    monkeypatch.setattr(jax, "default_backend", lambda: "rocm")
+    with pytest.raises(RuntimeError, match="no solver policy"):
+        platform_policy()

@@ -1,5 +1,5 @@
 """Runtime conformance tests — the differential-testing layer of the
-reference (SURVEY.md §4 layer 2): every op computed with the TPU-native
+reference (SURVEY.md §4 layer 2): every op computed with the batched
 structures is compared against the identical computation with scipy/numpy.
 """
 

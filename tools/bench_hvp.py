@@ -1,8 +1,8 @@
 """Micro-benchmark: H@v layout variants on real fem2d Newton systems.
 
-The MG-CG preconditioner applies ~15 H@v products per CG iteration; at the
-TPU per-kernel latency floor the op count and layout of hvp IS the solver
-runtime (CLAUDE.md round-1 findings).  This tool times the candidate
+The MG-CG preconditioner applies ~15 H@v products per CG iteration; at a
+per-kernel latency floor the op count and layout of hvp IS the solver
+runtime.  This tool times the candidate
 layouts on the real device so layout decisions are measured, not guessed:
 
   field : (nf, m+1) coefficients, He (nelem, C, C), C = f*nl + a (round-1
@@ -69,7 +69,7 @@ def main():
     F2 = jax.hessian(Q.barrier, argnums=1)
     Y2w = jax.vmap(F2)(ctx.x, y) * ctx.w[:, None, None]
     Y2w_e = Y2w.reshape(nelem, nq, k, k)
-    He = ctx._assemble_He(ctx._P[lvl], Y2w_e)
+    He = A._assemble_He(ctx._P[lvl], Y2w_e)
     print(
         f"# L={args.L} nelem={nelem} nq={nq} nl={nl} m={m} C={nf*nl} "
         f"dtype={He.dtype}",

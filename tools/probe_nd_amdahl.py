@@ -20,11 +20,12 @@ Run: python tools/probe_nd_amdahl.py --L 7 [--leaf 16] [--out f.json]
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():

@@ -17,12 +17,13 @@ Run:  XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
 import argparse
 import json
 import re
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 COLLECTIVES = (
     "all-reduce",
@@ -63,7 +64,7 @@ def main():
     coords = node_coords(basis.idx, m, np.asarray(g.x), basis.nq)
     sym = NDSymbolic(np.asarray(basis.idx), m, nf, coords, leaf=16)
 
-    # SPD-ish symmetric test values (same recipe as probe_nd_sweep)
+    # SPD-ish symmetric test values (a shifted diagonal)
     rng = np.random.default_rng(0)
     nuniq = sym.nuniq
     vals = rng.standard_normal((nf, nf, nuniq)) * 0.01

@@ -1,11 +1,12 @@
 """Stage attribution of the host-pre program (barrier derivatives ->
 element Hessians -> dedup segment_sum) on the live backend at a given
 L.  Each truncated program is timed per-call (min of 3); deltas give
-the per-stage split of the ~210ms 'pre' cost measured on TPU at L=7.
+the per-stage split of the 'pre' cost.
 
-Run on TPU:  python tools/probe_pre_stages.py [L]
+Run on the device:  python tools/probe_pre_stages.py [L]
 """
 
+import os
 import sys
 import time
 
@@ -13,7 +14,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import importlib
 
 import multigridbarrier_tpu as mgb
@@ -78,7 +79,7 @@ def stage(upto):
         Y2w = jax.vmap(F2)(x, y) * w[:, None, None]
         if upto == "hess":
             return cy + fy0 + gv.sum() + Y2w.sum()
-        He = ctx._assemble_He(Pl, Y2w.reshape(nelem, nq, k, k))
+        He = A._assemble_He(Pl, Y2w.reshape(nelem, nq, k, k))
         if upto == "asmHe":
             return cy + fy0 + gv.sum() + He.sum()
         vals = jax.ops.segment_sum(

@@ -4,11 +4,11 @@ multi-rank scaling measurement the reference never published
 
 For each device count this reports wall time AND the number of XLA
 collectives (all-reduce / all-gather / collective-permute / reduce-scatter)
-GSPMD inserted into each compiled per-level Newton kernel — the TPU
+GSPMD inserted into each compiled per-level Newton kernel — the
 equivalent of the reference's hand-planned MPI message counts.  On a
 virtual CPU mesh the wall times share one socket (they measure overhead,
 not speedup); the collective counts are exactly what a real multi-chip run
-would execute over ICI, which is why the artifact is worth committing
+would execute over the interconnect, which is why the artifact is worth committing
 before real hardware is available.
 
 Run on CPU with virtual devices:
